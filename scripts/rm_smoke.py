@@ -1,6 +1,6 @@
-"""One-command Richtmyer-Meshkov dataset smoke test (VERDICT round 2 "Next"
-#9: keep RM-data integration ready so validation is one command the day the
-dataset is mounted).
+"""One-command Richtmyer-Meshkov dataset smoke test: keeps RM-data
+integration ready, so validation is one command the day the dataset is
+mounted.
 
     python scripts/rm_smoke.py --rm-dir /path/to/rm [--timestep 273]
                                [--bricks 8] [--grid 2,2,2] [--render]
@@ -18,8 +18,9 @@ Checks, in order (mirroring the reference driver ``main.cpp:242-292``):
 4. **Compression round-trip** (optional quick check at tolerance 1, epochs 2
    like ``main.cpp:253-258``): builds the kd-tree codec on the assembled
    volume and reports max/mean reconstruction error at the leaf cut.
-5. ``--render``: renders one 1024² compositing frame of the decoded volume
-   through the Pallas plan and writes ``out/rm_frame.npy``.
+5. ``--render``: renders one 1024² compositing frame of the assembled volume
+   through ``models.plan_compositing`` (the renderer the backend chooses)
+   and writes ``out/rm_frame.npy``.
 """
 from __future__ import annotations
 
@@ -81,22 +82,22 @@ def main():
         print(f"codec leaf cut: max err {err.max()}, mean {err.mean():.4f}, "
               f"active nodes {tree.num_active_nodes}")
 
-    # 5. one rendered frame via the Pallas plan
+    # 5. one rendered frame through the compositing plan
     if args.render:
-        import jax.numpy as jnp
-        from volumerenderer_tpu import (Camera, generate_rays,
-                                        as_normalized_volume)
+        from volumerenderer_tpu import (Camera, as_normalized_volume, backend,
+                                        generate_rays)
         from volumerenderer_tpu.models import plan_compositing
 
+        backend.enable_compile_cache()
         nv = as_normalized_volume(vol)
         Z, Y, X = nv.shape
         rays = generate_rays(Camera(width=1024, height=1024))
         plan = plan_compositing(rays.entry_uv, rays.direction, rays.hit,
                                 (X, Y, Z))
-        rgb, alpha = plan.render(jnp.asarray(nv))
+        rgb, alpha = plan.render(nv)
         os.makedirs("out", exist_ok=True)
         np.save("out/rm_frame.npy", np.asarray(rgb))
-        print("wrote out/rm_frame.npy; kernel =", plan.use_kernel)
+        print("wrote out/rm_frame.npy; renderer =", plan.impl)
     return 0
 
 

@@ -1,6 +1,5 @@
 """Brick-sharded (3-D volume sharding) rendering tests on the 8-device CPU
-mesh — BASELINE config 5's "brick-sharded across multi-host pod" layout
-(VERDICT round 1, missing #4)."""
+mesh — BASELINE config 5's "brick-sharded across hosts" layout."""
 import numpy as np
 
 from volumerenderer_tpu import Camera, generate_rays, as_normalized_volume

@@ -127,7 +127,7 @@ def test_native_build_matches_python():
 
 
 def test_device_decode_stays_on_device_and_uint32_codes():
-    """VERDICT round 4 missing #5: the hashed decode must be fully device-
+    """The hashed decode must be fully device-
     resident (no host round-trip for the leaf permutation), and its Morton
     arithmetic must stay exact past the int32 boundary (uint32 codes)."""
     import jax

@@ -239,7 +239,7 @@ def test_open_tree_full_roundtrip():
 
 
 def test_chunked_device_decode_matches_host():
-    """VERDICT round 4 "do this" #2: deep trees decode ON DEVICE in bounded
+    """Deep trees decode ON DEVICE in bounded
     chunks (per depth-K subtree, lax.map) — bit-identical to the host decode
     at every cut depth, including cuts below the chunk split, at orig_depth,
     and through the grown chains."""

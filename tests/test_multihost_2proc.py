@@ -1,9 +1,9 @@
 """REAL multi-process multi-host validation (SURVEY §5 "distributed comm
-backend", VERDICT rounds 1-3 "partial: no real >=2-host run exists").
+backend").
 
 Two separate Python processes join one ``jax.distributed`` runtime (the
-same call a TPU pod uses; collectives ride Gloo on CPU here, ICI/DCN on
-TPUs), each exposing 4 CPU devices — an 8-device global mesh across 2
+same call a multi-host GPU job uses; collectives ride Gloo on CPU here, NCCL
+on GPUs), each exposing 4 CPU devices — an 8-device global mesh across 2
 "hosts".  Each process:
 
 * reads ONLY its own bricks (``multihost.host_local_bricks`` /
@@ -17,7 +17,7 @@ TPUs), each exposing 4 CPU devices — an 8-device global mesh across 2
   reference locally).
 
 This is the closest a single machine gets to the >=2-host north star; the
-remaining gap (real ICI/DCN numbers) needs pod hardware.
+remaining gap (real cross-host numbers) needs several hosts.
 """
 import os
 import socket

@@ -1,81 +1,20 @@
-"""Occupancy mip, word table, and packed-neighborhood sampler tests (CPU)."""
+"""Tree occupancy mip, packed-neighborhood sampler and compressed-renderer
+plan tests (CPU)."""
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from volumerenderer_tpu.ops.pallas import raycast_kernel as RK
+from volumerenderer_tpu.codecs.device import block_max8
 from volumerenderer_tpu.ops.sampling import (as_normalized_volume,
                                              pack_neighborhoods,
                                              sample_trilinear,
                                              sample_trilinear_packed)
-
-from conftest import EAGER_INTERPRET
 
 
 def _rand_vol(shape, seed=0):
     rng = np.random.default_rng(seed)
     return as_normalized_volume(rng.integers(0, 256, size=shape,
                                              dtype=np.uint8))
-
-
-def test_occupancy_mip_conservative():
-    """Every mip cell bounds the max over its covered (16, 16, 24) box."""
-    vol = _rand_vol((24, 40, 32), seed=1)
-    s = np.round(np.asarray(vol) * 255.0)
-    m = np.asarray(RK.occupancy_mip(vol))
-    Z, Y, X = s.shape
-    for i in range(m.shape[0]):
-        for j in range(m.shape[1]):
-            for k in range(m.shape[2]):
-                box = s[8 * i:8 * i + 16, 8 * j:8 * j + 16,
-                        8 * k:8 * k + 24]
-                assert m[i, j, k] >= box.max() - 1e-6
-
-
-def test_word_table_chain_and_origins():
-    """nd deltas walk exactly the sampled steps; origins match the packing."""
-    T, S1 = 3, 12
-    rng = np.random.default_rng(2)
-    mins = jnp.asarray(rng.integers(0, 60, size=(T, S1, 3)).astype(np.int32))
-    dims = (128, 64, 64)  # X, Y, Z
-    words = np.asarray(RK.build_word_table(mins, dims, 4, n_steps=S1))
-    assert words.shape == (T, S1)
-    oy_ref = np.clip((np.asarray(mins)[..., 0] // 8) * 8, 0, 64 - RK.WIN_Y)
-    oz_ref = np.clip(np.asarray(mins)[..., 1], 0, 64 - 4)
-    assert np.array_equal(((words >> 1) & 0xFF) * 8, oy_ref)
-    assert np.array_equal((words >> 9) & 0x7FF, oz_ref)
-    assert np.all(words & 1 == 1)          # dense: every step sampled
-    assert np.all(words[:, :-1] >> 20 == 1)  # and chained with delta 1
-    assert np.all(words[:, -1] >> 20 == 0)   # last has no successor
-
-
-def test_word_table_skipping_is_conservative():
-    """With a volume bound, a skipped step's window max is <= threshold."""
-    vol = _rand_vol((32, 32, 128), seed=3)
-    s = np.round(np.asarray(vol) * 255.0)
-    T, S1 = 4, 20
-    rng = np.random.default_rng(4)
-    mins_y = rng.integers(0, 32, size=(T, S1))
-    mins_z = rng.integers(0, 32, size=(T, S1))
-    mins_x = rng.integers(0, 120, size=(T, S1))
-    mins = jnp.asarray(np.stack([mins_y, mins_z, mins_x], -1).astype(np.int32))
-    thr = 200.0
-    words = np.asarray(RK.build_word_table(mins, (128, 32, 32), 4,
-                                           volume=vol, threshold=thr,
-                                           n_steps=S1))
-    oz = np.clip(mins_z, 0, 32 - 4)
-    oy = np.clip((mins_y // 8) * 8, 0, 32 - RK.WIN_Y)
-    ox = np.clip(mins_x, 0, 127)
-    for t in range(T):
-        for i in range(S1):
-            if words[t, i] & 1 == 0:
-                win = s[oz[t, i]:oz[t, i] + 4, oy[t, i]:oy[t, i] + RK.WIN_Y,
-                        ox[t, i]:ox[t, i] + RK.MIP_SPAN_X]
-                assert win.max() <= thr
-            # nd always points at the next sampled step
-            nd = words[t, i] >> 20
-            if nd:
-                assert words[t, i + nd] & 1 == 1
-                assert np.all(words[t, i + 1:i + nd] & 1 == 0)
 
 
 def test_packed_sampler_matches_dense():
@@ -100,123 +39,78 @@ def test_packed_sampler_edges():
     np.testing.assert_allclose(a, b, atol=2e-6)
 
 
-def test_compressed_renderer_make_plan():
-    """Plan-once compressed rendering matches the per-call path (CPU: both
-    route to the jnp renderer; on TPU the plan adds exact occupancy skip)."""
-    from volumerenderer_tpu import Camera, generate_rays
+def _small_renderer():
     from volumerenderer_tpu.codecs.kdtree import build as build_tree
     from volumerenderer_tpu.models.compressed import CompressedRenderer
 
     rng = np.random.default_rng(11)
     vol = rng.integers(0, 255, size=(16, 16, 16), dtype=np.uint8)
-    tree = build_tree(vol, tolerance=2, max_epochs=2)
-    r = CompressedRenderer(tree)
+    vol[:, :, :5] = 0  # some empty space for the pool
+    return CompressedRenderer(build_tree(vol, tolerance=2, max_epochs=2))
+
+
+@pytest.mark.parametrize("pooled", [False, True])
+def test_compressed_renderer_make_plan(pooled):
+    """Plan-once compressed rendering (dense cut, or the compressed-domain
+    slab pool) matches the per-call path in both modes."""
+    from volumerenderer_tpu import Camera, generate_rays
+
+    r = _small_renderer()
     rays = generate_rays(Camera(width=32, height=16))
     rgb_a, alpha_a = r.render(rays, mode="compositing")
-    plan_fn = r.make_plan(rays, mode="compositing")
-    rgb_b, alpha_b = plan_fn()
-    np.testing.assert_allclose(np.asarray(rgb_a), np.asarray(rgb_b), atol=1e-6)
-    rgb_c, found_c = r.make_plan(rays, mode="isosurface")()
+    rgb_b, alpha_b = r.make_plan(rays, mode="compositing", pooled=pooled)()
+    np.testing.assert_allclose(np.asarray(rgb_a), np.asarray(rgb_b),
+                               atol=2e-6)
+    np.testing.assert_allclose(np.asarray(alpha_a), np.asarray(alpha_b),
+                               atol=2e-6)
+    rgb_c, found_c = r.make_plan(rays, mode="isosurface", pooled=pooled)()
     rgb_d, found_d = r.render(rays, mode="isosurface")
     np.testing.assert_array_equal(np.asarray(found_c), np.asarray(found_d))
+    np.testing.assert_allclose(np.asarray(rgb_c), np.asarray(rgb_d),
+                               atol=5e-3)
 
 
-def test_pair_word_table_chain_and_unions():
-    """Pair words: origins cover both steps' footprints; nd walks sampled
-    pairs; a skipped pair has both steps' window bounds <= threshold."""
-    vol = _rand_vol((32, 32, 128), seed=8)
+def test_compressed_renderer_rejects_unknown_mode():
+    from volumerenderer_tpu import Camera, generate_rays
+
+    r = _small_renderer()
+    rays = generate_rays(Camera(width=4, height=4))
+    with pytest.raises(ValueError):
+        r.make_plan(rays, mode="mip")
+    with pytest.raises(ValueError):
+        r.render(rays, mode="mip")
+
+
+def test_shade_pool_residency_from_tree_metadata():
+    """The pool keeps only slabs the tree says are occupied (plus neighbors
+    whose z1 taps reach in); an empty tree keeps none beyond slot 0."""
+    from volumerenderer_tpu.codecs.kdtree import build as build_tree
+    from volumerenderer_tpu.models.compressed import CompressedRenderer
+
+    v = np.zeros((32, 8, 8), np.uint8)
+    v[20:22] = 200
+    r = CompressedRenderer(build_tree(v, tolerance=1, max_epochs=1))
+    state = r.shade_pool_at()
+    assert state.shape == (32, 8, 8)
+    smap = np.asarray(state.slab_map)
+    assert smap[2] > 0 and smap[0] == 0 and smap[3] == 0
+    assert state.pool.shape[0] == 1 + int((smap > 0).sum())
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8), (9, 17, 3), (16, 5, 24)])
+def test_block_max8_pads_ragged_edges(shape):
+    vol = _rand_vol(shape, seed=sum(shape))
     s = np.round(np.asarray(vol) * 255.0)
-    T, S = 4, 20
-    rng = np.random.default_rng(9)
-    mn = rng.integers(0, 28, size=(T, S + 1, 3)).astype(np.int32)
-    mx = mn + rng.integers(0, 4, size=(T, S + 1, 3)).astype(np.int32)
-    mn[..., 2] = rng.integers(0, 110, size=(T, S + 1))
-    mx[..., 2] = mn[..., 2] + rng.integers(0, 8, size=(T, S + 1))
-    mins, maxs = jnp.asarray(mn), jnp.asarray(mx)
-    dims = (128, 32, 32)
-    win_z = 6
-    P = S // 2
-
-    pmn, pmx, spans = RK.pair_unions(mins, maxs, S)
-    pmn = np.asarray(pmn)
-    ref_mn = np.minimum(mn[:, 0:S:2], mn[:, 1:S:2])
-    ref_mx = np.maximum(mx[:, 0:S:2], mx[:, 1:S:2])
-    assert np.array_equal(pmn, ref_mn)
-    assert int(spans[1]) == int(
-        (ref_mx[..., 1] - ref_mn[..., 1] + 1).max())
-
-    thr = 200.0
-    words = np.asarray(RK.build_word_table_pairs(
-        mins, maxs, dims, win_z, S, volume=vol, threshold=thr))
-    assert words.shape == (T, P)
-    oy_ref = np.clip((ref_mn[..., 0] // 8) * 8, 0, 32 - RK.WIN_Y)
-    oz_ref = np.clip(ref_mn[..., 1], 0, 32 - win_z)
-    assert np.array_equal(((words >> 1) & 0xFF) * 8, oy_ref)
-    assert np.array_equal((words >> 9) & 0x7FF, oz_ref)
-    soz = np.clip(mn[..., 1], 0, 32 - win_z)
-    soy = np.clip((mn[..., 0] // 8) * 8, 0, 32 - RK.WIN_Y)
-    sox = np.clip(mn[..., 2], 0, 127)
-    for t in range(T):
-        for p in range(P):
-            if words[t, p] & 1 == 0:
-                for step in (2 * p, 2 * p + 1):
-                    win = s[soz[t, step]:soz[t, step] + win_z,
-                            soy[t, step]:soy[t, step] + RK.WIN_Y,
-                            sox[t, step]:sox[t, step] + RK.MIP_SPAN_X]
-                    assert win.max() <= thr
-            nd = words[t, p] >> 20
-            if nd:
-                assert words[t, p + nd] & 1 == 1
-                assert np.all(words[t, p + 1:p + nd] & 1 == 0)
-
-
-def test_narrow_x_dual_copy_layout_and_xwords():
-    """pack_pairs_narrow panels hold the pair volume (copy 0) and its
-    64-shifted copy; every pair x interval of span <= NARROW_SPAN_X is covered
-    by its x word's panel, and xeff names the panel's volume-x origin."""
-    vol = _rand_vol((8, 16, 256), seed=12)
-    X = 256
-    chunked = np.asarray(RK.pack_pairs_narrow(vol))
-    p = np.asarray(RK.pack_pairs(vol))
-    for ci in range(X // 128):
-        assert np.array_equal(chunked[ci], p[:, :, ci * 128:(ci + 1) * 128])
-    shifted = np.concatenate(
-        [p[:, :, 64:], np.repeat(p[:, :, -1:], 64, axis=2)], axis=2)
-    for j in range(X // 128):
-        assert np.array_equal(chunked[X // 128 + j],
-                              shifted[:, :, j * 128:(j + 1) * 128])
-
-    T, S = 3, 12
-    rng = np.random.default_rng(13)
-    mn = rng.integers(0, 8, size=(T, S + 1, 3)).astype(np.int32)
-    mx = mn + 1
-    mn[..., 2] = rng.integers(0, 255 - RK.NARROW_SPAN_X, size=(T, S + 1))
-    mx[..., 2] = mn[..., 2] + rng.integers(
-        0, RK.NARROW_SPAN_X, size=(T, S + 1))
-    xw = np.asarray(RK.build_xword_table(jnp.asarray(mn), jnp.asarray(mx),
-                                         (X, 16, 8), S))
-    P = S // 2
-    a = np.minimum(mn[:, 0:S:2, 2], mn[:, 1:S:2, 2])
-    b = np.maximum(mx[:, 0:S:2, 2], mx[:, 1:S:2, 2])
-    assert xw.shape == (T, P)
-    ci = xw >> 16
-    xeff = xw & 0xFFFF
-    # coverage is guaranteed only under the caller-checked precondition
-    # span_x_pair <= NARROW_SPAN_X (the plan falls back to full-width
-    # windows otherwise)
-    ok = (b - a) < RK.NARROW_SPAN_X
-    assert ok.any()
-    assert np.all((xeff <= a) | ~ok) and np.all((b <= xeff + 127) | ~ok)
-    half = X // 128
-    assert np.all(np.where(ci < half, ci * 128,
-                           (ci - half) * 128 + 64) == xeff)
-    assert np.all(ci < 2 * half)
-
+    m = np.asarray(block_max8(vol))
+    assert m.shape == tuple(-(-n // 8) for n in shape)
+    for i, j, k in np.ndindex(m.shape):
+        assert m[i, j, k] == s[8 * i:8 * i + 8, 8 * j:8 * j + 8,
+                               8 * k:8 * k + 8].max()
 
 def test_tree_occupancy_mip8_matches_dense_block_max():
     """The tree-metadata occupancy grid equals the dense volume's per-8³
     block max at every cut depth (the decoded cut is piecewise constant on
-    cut-depth node boxes) — zero dense-volume pass (VERDICT r1 item 8)."""
+    cut-depth node boxes) — zero dense-volume pass."""
     from volumerenderer_tpu.codecs.kdtree import build as build_tree
     from volumerenderer_tpu.codecs.device import (level_cut_device,
                                                   to_device,
@@ -231,80 +125,8 @@ def test_tree_occupancy_mip8_matches_dense_block_max():
     for cut in (spec["orig_depth"] // 2, spec["orig_depth"],
                 spec["max_depth"]):
         decoded = as_normalized_volume(level_cut_device(dtree, spec, cut))
-        want = np.asarray(RK.block_max8(decoded))
+        want = np.asarray(block_max8(decoded))
         got = np.asarray(tree_occupancy_mip8(dtree, spec, cut))
         np.testing.assert_array_equal(got, want)
 
 
-def test_make_plan_tree_skip_outputs_unchanged_interpret():
-    """make_plan's tree-driven occupancy skipping leaves kernel outputs
-    unchanged (interpret-mode kernel vs unskipped jnp reference)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from volumerenderer_tpu import Camera, generate_rays
-    from volumerenderer_tpu.codecs.kdtree import build as build_tree
-    from volumerenderer_tpu.models.compressed import CompressedRenderer
-    from volumerenderer_tpu.ops.raycast import render_compositing
-
-    v = np.zeros((8, 16, 128), np.uint8)
-    v[2:6, 4:12, 30:90] = 200
-    tree = build_tree(v, tolerance=1, max_epochs=2)
-    r = CompressedRenderer(tree)
-    rays = generate_rays(Camera(width=64, height=32))
-    with pltpu.force_tpu_interpret_mode(EAGER_INTERPRET):
-        rgb_k, a_k = r.make_plan(rays, mode="compositing",
-                                 max_samples=24, skip_empty=True)()
-    vol = r.volume_at()
-    rgb_r, a_r = render_compositing(vol, rays.entry_uv, rays.direction,
-                                    rays.hit, max_samples=24)
-    np.testing.assert_allclose(np.asarray(a_k), np.asarray(a_r), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(rgb_k), np.asarray(rgb_r),
-                               atol=1e-5)
-
-
-def test_word_table_threshold_float_and_array_one_process():
-    """Regression (round-2 VERDICT weak #1): ``build_word_table`` /
-    ``build_word_table_group`` must accept BOTH a Python-float threshold
-    (CompositingPlan.bind) and a jnp-scalar threshold (IsosurfacePlan.bind)
-    in the same process.  A stacked @jax.jit with 'threshold' static in one
-    of the two decorators crashed on the array call."""
-    vol = _rand_vol((16, 16, 128), seed=5)
-    T, S1 = 2, 8
-    rng = np.random.default_rng(6)
-    mins = jnp.asarray(np.stack([rng.integers(0, 8, (T, S1)),
-                                 rng.integers(0, 12, (T, S1)),
-                                 rng.integers(0, 120, (T, S1))],
-                                -1).astype(np.int32))
-    maxs = mins + 1
-    dims = (128, 16, 16)
-    w_f = RK.build_word_table(mins, dims, 4, volume=vol, threshold=0.0,
-                              n_steps=S1)
-    w_a = RK.build_word_table(mins, dims, 4, volume=vol,
-                              threshold=jnp.float32(0.0), n_steps=S1)
-    np.testing.assert_array_equal(np.asarray(w_f), np.asarray(w_a))
-    g_f = RK.build_word_table_group(mins, maxs, dims, 4, S1, volume=vol,
-                                    threshold=0.0, k=2)
-    g_a = RK.build_word_table_group(mins, maxs, dims, 4, S1, volume=vol,
-                                    threshold=jnp.float32(0.0), k=2)
-    np.testing.assert_array_equal(np.asarray(g_f), np.asarray(g_a))
-
-
-def test_cross_plan_bind_one_process():
-    """Bind a CompositingPlan (float threshold) AND an IsosurfacePlan
-    (jnp-array threshold) against one volume in one process — the judge's
-    round-2 crash repro."""
-    from volumerenderer_tpu import Camera, generate_rays
-    from volumerenderer_tpu.ops.pallas.isosurface_kernel import IsosurfacePlan
-
-    vol = _rand_vol((16, 16, 128), seed=7)
-    Z, Y, X = vol.shape
-    rays = generate_rays(Camera(width=32, height=16))
-    cp = RK.CompositingPlan(rays.entry_uv, rays.direction, rays.hit,
-                            (X, Y, Z), max_samples=24)
-    ip = IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit,
-                        (X, Y, Z), max_samples=24)
-    assert cp.use_kernel and ip.use_kernel
-    wc = cp.bind(volume=vol)
-    wi = ip.bind(volume=vol, iso_value=40.0 / 255.0)
-    # both kernels tile into groups of `lanes` vregs of 128 rays; the total
-    # 128-ray vreg count must agree regardless of each plan's group shape
-    assert wc.shape[0] * cp.lanes == wi.shape[0] * ip.lanes

@@ -89,10 +89,10 @@ def test_sample_trilinear_pooled_matches_packed():
     v[9:14] = rng.random((5, Y, X))
     for vol in (v, rng.random((Z, Y, X)).astype(np.float32)):
         vol = jnp.asarray(np.round(vol * 255.0) / 255.0, jnp.float32)
-        pool, smap = build_shade_pool(vol)
+        state = build_shade_pool(vol)
         packed = pack_neighborhoods(vol)
         uvw = jnp.asarray(rng.random((257, 3)), jnp.float32)
-        a = sample_trilinear_pooled(pool, smap, (X, Y, Z), uvw)
+        a = sample_trilinear_pooled(state.pool, state.slab_map, (X, Y, Z), uvw)
         b = sample_trilinear_packed(packed, uvw)
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
-    assert pool.shape[0] <= Z // 8 + 1
+    assert state.pool.shape[0] <= Z // 8 + 1 and state.shape == (Z, Y, X)

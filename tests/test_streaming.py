@@ -50,7 +50,7 @@ def test_stream_checkpoint_resume(tmp_path):
     second = {}
     for t, r in s2:
         # resume keeps the compressed-renderer class (cut-depth control,
-        # device decode, tree-metadata occupancy) — VERDICT round 1 weak #6
+        # device decode, tree-metadata occupancy)
         assert isinstance(r, CompressedRenderer)
         second[t] = np.asarray(r.render(rays)[0])
     assert not calls  # no brick reads on resume

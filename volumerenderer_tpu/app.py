@@ -147,5 +147,7 @@ def run(cfg: AppConfig = AppConfig(), num_frames: int = 1, save_tree: bool = Fal
                                        max_samples=cfg.render.max_samples)
         frames.append(np.asarray(rgb))  # forces completion (honest timing)
     DebugTimer.end("LOOP")
-    metrics.record(frame_ms=DebugTimer.mean_ms("LOOP"))
+    metrics.record(frame_ms=DebugTimer.mean_ms("LOOP"),
+                   decode="device" if renderer.decoded_on_device(
+                       cfg.codec.cut_depth) else "host")
     return frames, metrics

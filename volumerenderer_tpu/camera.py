@@ -1,6 +1,6 @@
 """Camera model and per-pixel ray generation.
 
-TPU-native replacement for the reference's rasterized proxy-geometry trick:
+Replacement for the reference's rasterized proxy-geometry trick:
 the reference renders the front faces of a unit cube and lets the rasterizer
 interpolate ``vUV = vVertex + 0.5`` per fragment (``raycaster.vert:20``,
 ``UnitBrick.h:54-99``), so each fragment's ray starts at the cube entry point in
@@ -24,7 +24,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["Camera", "look_at_basis", "generate_rays", "RayBundle"]
+__all__ = ["Camera", "look_at_basis", "generate_rays", "RayBundle",
+           "orbit_camera"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +42,16 @@ class Camera:
     @property
     def aspect(self) -> float:
         return self.width / self.height
+
+
+def orbit_camera(az_deg: float, width: int, height: int) -> Camera:
+    """The reference's default eye (0, 0, -0.75) orbited ``az_deg`` degrees
+    around +y, always looking at the volume center (``main.cpp:33-35``)."""
+    a = np.radians(az_deg)
+    return Camera(width=width, height=height,
+                  position=(0.75 * float(np.sin(a)), 0.0,
+                            -0.75 * float(np.cos(a))),
+                  front=(-float(np.sin(a)), 0.0, float(np.cos(a))))
 
 
 def look_at_basis(position, front, up):
@@ -102,8 +113,12 @@ def _generate_rays(params, width: int, height: int):
     entry_uv = entry + 0.5  # vUV = object position + 0.5 (raycaster.vert:20)
 
     # Shader-faithful direction: normalize((vUV - 0.5) - camPos) (raycaster.frag:27).
+    # With the eye inside the cube the entry point is the eye itself and that
+    # vector is zero; those rays march along the pixel direction.
     geom_dir = entry_uv - 0.5 - position
-    geom_dir = geom_dir / jnp.linalg.norm(geom_dir, axis=-1, keepdims=True)
+    norm = jnp.linalg.norm(geom_dir, axis=-1, keepdims=True)
+    geom_dir = jnp.where(t_near[..., None] > 0.0,
+                         geom_dir / jnp.where(norm > 0.0, norm, 1.0), d)
     return entry_uv, geom_dir, hit
 
 

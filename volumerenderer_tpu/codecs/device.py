@@ -1,6 +1,6 @@
 """Device-resident compressed tree + jit level-cut decode.
 
-The TPU-native replacement for the reference's (stubbed) in-shader compressed
+The device-side replacement for the reference's (stubbed) in-shader compressed
 traversal (``isosurface_compressed.frag:18-44``, SSBO upload paths commented at
 ``main.cpp:203-237``): the 2-bit code stream lives on device in packed uint8
 words, and a level cut decodes with vectorized shift/mask unpacking plus a
@@ -23,7 +23,7 @@ from ..utils.bitarray import pack2_np, unpack2
 from .kdtree import KdTree, NO_NODE, _leaf_axes_perm
 
 __all__ = ["DeviceKdTree", "to_device", "level_cut_device",
-           "tree_occupancy_mip8"]
+           "tree_occupancy_mip8", "block_max8"]
 
 
 class DeviceKdTree(NamedTuple):
@@ -120,7 +120,7 @@ def _level_cut_impl(dtree: DeviceKdTree, spec_key, cut_depth: int):
 
 # deep trees: the flat decode's per-level buffers (and the per-leaf chain
 # unpack) scale with 2^orig_depth and blew the compiler's HLO-temp budget at
-# the tolerance-1 256³ tree (>51 GB, VERDICT round 4 missing #1).  The
+# the tolerance-1 256³ tree (>51 GB).  The
 # chunked decode below bounds every buffer by 2^(orig_depth - K): leaves are
 # decoded per depth-K subtree (a CONTIGUOUS slice of every deeper level's
 # code stream, and a contiguous box of the output volume since the first K
@@ -248,12 +248,9 @@ def tree_occupancy_mip8(dtree: DeviceKdTree, spec: dict,
     up ~128x tiling padding on deep trees (2 GB HLO temps per level at
     D=24, same mechanism as the round-4 level-cut compile OOM), while the
     block max of the decoded cut is the SAME array by definition (the cut is
-    piecewise constant on node boxes) at a transient 16 MB.  Feeds
-    ``CompositingPlan.bind(mip8=...)`` / ``IsosurfacePlan.bind(mip8=...)``
-    for exact empty-space skipping driven by codec data (the role the
-    reference's stubbed compressed shader reached for,
-    ``isosurface_compressed.frag:18-44``; SURVEY.md §7 "free empty-space
-    skipping")."""
+    piecewise constant on node boxes) at a transient 16 MB.  Drives the
+    slab residency of the compressed-domain pool
+    (``ops.sampling.build_shade_pool``) from codec data."""
     if cut_depth is None:
         cut_depth = spec["max_depth"]
     spec_key = (tuple(spec["dims"]), spec["orig_depth"], spec["max_depth"],
@@ -264,10 +261,21 @@ def tree_occupancy_mip8(dtree: DeviceKdTree, spec: dict,
     return _tree_mip8_impl(dtree, spec_key, int(cut_depth))
 
 
+def block_max8(volume):
+    """(Z, Y, X) f32 in [0, 1] -> (ceil(Z/8), ceil(Y/8), ceil(X/8)) f32
+    per-8³-block maximum in 0..255 units.  :func:`tree_occupancy_mip8`
+    produces the same grid from the compressed tree's own scalars with no
+    dense-volume pass."""
+    s = jnp.round(jnp.clip(volume, 0.0, 1.0) * 255.0)
+    Z, Y, X = s.shape
+    pz, py, px = (-Z) % 8, (-Y) % 8, (-X) % 8
+    s = jnp.pad(s, ((0, pz), (0, py), (0, px)))
+    return s.reshape((Z + pz) // 8, 8, (Y + py) // 8, 8,
+                     (X + px) // 8, 8).max(axis=(1, 3, 5))
+
+
 @jax.jit
 def _mip8_of_cut(vol_u8):
-    from ..ops.pallas.raycast_kernel import block_max8
-
     return block_max8(vol_u8.astype(jnp.float32) * (1.0 / 255.0))
 
 

@@ -1,7 +1,7 @@
-"""Device-side (TPU) kd-tree compression.
+"""Device-side kd-tree compression.
 
 The host codec (``kdtree.py``) mirrors the reference's CPU build.  This module
-runs the data-parallel passes on device as fused XLA programs — the TPU-native
+runs the data-parallel passes on device as fused XLA programs — the device
 compression path for large volumes:
 
 * PASS 1 pyramid: pairwise min/max reductions over the transpose-derived leaf

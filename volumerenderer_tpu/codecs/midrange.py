@@ -1,4 +1,4 @@
-"""Mid-range dual-tree codec — TPU-native rebuild of the reference
+"""Mid-range dual-tree codec — JAX rebuild of the reference
 ``MidRangeTree`` (``MidRangeTree.cpp``; compiled and selectable in the
 reference, ``main.cpp:158,252``).
 

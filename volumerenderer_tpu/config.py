@@ -38,7 +38,6 @@ class RenderConfig:
     iso_value: float = 40.0 / 255.0
     iso_step: float = 5.0 / 255.0
     wrap: Literal["clamp", "repeat"] = "clamp"
-    use_pallas_kernel: bool = True       # fast path when supported
     early_exit: bool = True              # a > 0.99 break (raycaster.frag:77)
 
 

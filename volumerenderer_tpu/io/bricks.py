@@ -1,4 +1,4 @@
-"""Bricked volume I/O — TPU-native equivalent of the reference ``VolumeReader``
+"""Bricked volume I/O — the equivalent of the reference ``VolumeReader``
 (``VolumeReader.h``) and its Richtmyer-Meshkov dataset plumbing
 (``main.cpp:580-619``).
 
@@ -112,25 +112,38 @@ def synthetic_brick_source(grid: BrickGrid, kind: str = "turbulence"
 
 def assemble_bricks(source: Callable[[int, int], np.ndarray], grid: BrickGrid,
                     num_bricks: int, I: int, J: int, K: int, timestep: int,
-                    out: np.ndarray | None = None) -> np.ndarray:
+                    out: np.ndarray | None = None,
+                    workers: int = 1) -> np.ndarray:
     """Assemble ``num_bricks`` bricks into a dense (Z, Y, X) volume — the
     vectorized equivalent of ``LoadBricksToTexture``'s row-copy loops
     (``VolumeReader.h:151-223``).  ``out`` may be a preallocated array or
-    memmap for out-of-core assembly."""
+    memmap for out-of-core assembly.  ``workers`` > 1 reads (or generates)
+    bricks on that many threads; each writes its own disjoint block."""
     bx, by, bz = grid.brick_dims
     X, Y, Z = I * bx, J * by, K * bz
     if out is None:
         out = np.zeros((Z, Y, X), dtype=np.uint8)
     assert out.shape == (Z, Y, X), (out.shape, (Z, Y, X))
-    for b in range(num_bricks):
+
+    def put(b):
         i, j, k = grid.brick_coords(b)
-        brick = source(b, timestep)
-        out[k * bz:(k + 1) * bz, j * by:(j + 1) * by, i * bx:(i + 1) * bx] = brick
+        out[k * bz:(k + 1) * bz, j * by:(j + 1) * by,
+            i * bx:(i + 1) * bx] = source(b, timestep)
+
+    if workers > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(put, range(num_bricks)))
+    else:
+        for b in range(num_bricks):
+            put(b)
     return out
 
 
 def load_bricks(source, grid: BrickGrid, num_bricks: int, I: int, J: int,
-                K: int, timestep: int) -> np.ndarray:
+                K: int, timestep: int, workers: int = 1) -> np.ndarray:
     """Reference call shape: ``volume.LoadBricksToTexture(384, 8, 8, 6, 273,
     ...)`` (``main.cpp:242``)."""
-    return assemble_bricks(source, grid, num_bricks, I, J, K, timestep)
+    return assemble_bricks(source, grid, num_bricks, I, J, K, timestep,
+                           workers=workers)

@@ -10,11 +10,24 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..codecs.device import level_cut_device, to_device, tree_occupancy_mip8
-from ..ops.raycast import render_compositing
 from ..ops.isosurface import render_isosurface
-from ..ops.sampling import as_normalized_volume
+from ..ops.raycast import MAX_SAMPLES, render_compositing
+from ..ops.sampling import as_normalized_volume, sample_pooled
 
-__all__ = ["CompressedRenderer"]
+__all__ = ["CompressedRenderer", "DenseRenderer"]
+
+
+def _render(vol, rays, mode: str, **kwargs):
+    """Render ``vol`` with the renderer ``backend`` chooses for ``mode``."""
+    from . import best_isosurface_renderer, best_renderer
+
+    if mode == "compositing":
+        return best_renderer()(vol, rays.entry_uv, rays.direction, rays.hit,
+                               **kwargs)
+    elif mode == "isosurface":
+        return best_isosurface_renderer()(vol, rays.entry_uv, rays.direction,
+                                          rays.hit, **kwargs)
+    raise ValueError(f"unknown mode {mode}")
 
 
 class DenseRenderer:
@@ -28,13 +41,7 @@ class DenseRenderer:
         return self._vol
 
     def render(self, rays, cut_depth=None, mode: str = "compositing", **kwargs):
-        if mode == "compositing":
-            return render_compositing(self._vol, rays.entry_uv, rays.direction,
-                                      rays.hit, **kwargs)
-        elif mode == "isosurface":
-            return render_isosurface(self._vol, rays.entry_uv, rays.direction,
-                                     rays.hit, **kwargs)
-        raise ValueError(f"unknown mode {mode}")
+        return _render(self._vol, rays, mode, **kwargs)
 
 
 class CompressedRenderer:
@@ -53,14 +60,12 @@ class CompressedRenderer:
         self.tree = tree
         self.dtree, self.spec = to_device(tree)
         self._cache: dict[int, jnp.ndarray] = {}
-        self._pool_cache: dict[int, tuple] = {}
+        self._pool_cache: dict[int, object] = {}
         self._mip_cache: dict[int, jnp.ndarray] = {}
 
-    # per-(tree spec, cut) memo: once a device decode of THIS shape fails
-    # to compile in this process (each attempt costs ~10+ min of AOT compile
-    # before the OOM verdict), later decodes of the same shape go straight
-    # to the host path — other trees/cuts are unaffected (VERDICT round 4
-    # weak #4: the old class-level flag poisoned unrelated renderers)
+    # per-(tree spec, cut) memo: once a device decode of THIS shape ran out
+    # of memory in this process, later decodes of the same shape go straight
+    # to the host path — other trees/cuts are unaffected
     _device_decode_broken: dict = {}
 
     def _spec_key(self, cut: int):
@@ -68,34 +73,36 @@ class CompressedRenderer:
                 self.spec["max_depth"], self.spec["chain_len"], cut)
 
     def _decoded(self, cut: int):
-        """Level-cut decode with a host fallback: the on-device decode of a
-        very deep/low-tolerance tree can exceed the compiler's temp budget
-        (observed: tolerance-1 256^3 tree, >35 GB HLO-temp OOM with the
-        unchunked decoder) — the vectorized HOST decode produces identical
-        bytes.  Only resource-exhaustion-type failures flip the fallback;
-        genuine bugs in the device decode propagate."""
+        """Level-cut decode with a host fallback for one cause only: the
+        device running out of memory (``RESOURCE_EXHAUSTED``) on a very
+        deep/low-tolerance tree — the vectorized HOST decode produces
+        identical bytes.  Every other failure of the device decode
+        propagates."""
         key = self._spec_key(cut)
         if not CompressedRenderer._device_decode_broken.get(key):
             try:
                 return level_cut_device(self.dtree, self.spec, cut)
             except Exception as e:  # noqa: BLE001 — filtered below
                 msg = f"{type(e).__name__}: {e}"
-                oom = ("RESOURCE_EXHAUSTED" in msg or "exhausted" in msg
-                       or "out of memory" in msg.lower()
-                       or "Allocation" in msg
-                       or type(e).__name__ == "XlaRuntimeError")
-                if not oom:
+                if "RESOURCE_EXHAUSTED" not in msg:
                     raise
                 import warnings
 
                 warnings.warn(
-                    f"device level-cut decode failed for spec {key} "
-                    f"({msg.splitlines()[0][:200]}); falling back to the "
-                    f"host decode for this tree shape", stacklevel=2)
+                    f"device level-cut decode ran out of memory for spec "
+                    f"{key} ({msg.splitlines()[0][:200]}); falling back to "
+                    f"the host decode for this tree shape", stacklevel=2)
                 CompressedRenderer._device_decode_broken[key] = True
         from ..codecs.kdtree import level_cut
 
         return level_cut(self.tree, cut)
+
+    def decoded_on_device(self, cut_depth: int | None = None) -> bool:
+        """False once a device decode of this tree shape ran out of memory
+        and the host decode served it."""
+        cut = self.spec["max_depth"] if cut_depth is None else int(cut_depth)
+        return not CompressedRenderer._device_decode_broken.get(
+            self._spec_key(cut), False)
 
     def volume_at(self, cut_depth: int | None = None) -> jnp.ndarray:
         cut = self.spec["max_depth"] if cut_depth is None else int(cut_depth)
@@ -111,70 +118,27 @@ class CompressedRenderer:
                                                        cut)
         return self._mip_cache[cut]
 
-    def slab_pool_at(self, cut_depth: int | None = None,
-                     fmt: str = "pair16"):
-        """(pool, slab_map) sparse-residency render state for the level cut:
-        only z-slabs the tree says are occupied stay HBM-resident — the
-        compressed-domain render state is the packed tree + this
-        occupied-slab cache, with NO dense pair volume on device (the dense
-        decode is transient inside the pool build and freed).  Residency
-        comes from ``tree_occupancy_mip8`` — codec metadata, zero dense
-        pass.  ``fmt``: "pair16" (``build_slab_pool``, low memory) or
-        "narrowf32" (``build_slab_pool_narrow``, dense-kernel-speed
-        marching at 4x the resident bytes — docs/PERF_NOTES.md
-        "Compressed-domain residency")."""
-        cut = self.spec["max_depth"] if cut_depth is None else int(cut_depth)
-        key = (cut, fmt)
-        if key not in self._pool_cache:
-            from ..ops.pallas.raycast_kernel import (build_slab_pool,
-                                                     build_slab_pool_narrow)
-
-            build = build_slab_pool if fmt == "pair16" \
-                else build_slab_pool_narrow
-            decoded = self._decoded(cut)
-            pool, smap = build(as_normalized_volume(decoded),
-                               mip8=self.mip8_at(cut))
-            del decoded  # transient: not cached, freed with the jit buffers
-            self._pool_cache[key] = (pool, smap)
-        return self._pool_cache[key]
-
     def shade_pool_at(self, cut_depth: int | None = None):
-        """(pool, slab_map) sparse packed-neighborhood state for the
-        isosurface shading taps (``ops.sampling.build_shade_pool``), with
-        residency from tree metadata like :meth:`slab_pool_at`."""
+        """Sparse packed-neighborhood state of the level cut
+        (``ops.sampling.ShadePool``): only z-slabs the tree says are
+        occupied stay resident, with residency from tree metadata
+        (``tree_occupancy_mip8``, no dense pass).  The dense decode is
+        transient inside the pool build."""
         cut = self.spec["max_depth"] if cut_depth is None else int(cut_depth)
-        key = ("shade", cut)
-        if key not in self._pool_cache:
+        if cut not in self._pool_cache:
             from ..ops.sampling import build_shade_pool
 
             decoded = self._decoded(cut)
-            self._pool_cache[key] = build_shade_pool(
+            self._pool_cache[cut] = build_shade_pool(
                 as_normalized_volume(decoded), mip8=self.mip8_at(cut))
             del decoded
-        return self._pool_cache[key]
+        return self._pool_cache[cut]
 
-    def render(self, rays, cut_depth: int | None = None, mode: str = "compositing",
-               fast: bool = False, **kwargs):
-        """``fast=True`` routes through the Pallas kernels when supported
-        (falls back transparently)."""
-        vol = self.volume_at(cut_depth)
-        if mode == "compositing":
-            if fast:
-                from ..ops.pallas.raycast_kernel import render_compositing_pallas
-                return render_compositing_pallas(vol, rays.entry_uv,
-                                                 rays.direction, rays.hit,
-                                                 **kwargs)
-            return render_compositing(vol, rays.entry_uv, rays.direction,
-                                      rays.hit, **kwargs)
-        elif mode == "isosurface":
-            if fast:
-                from ..ops.pallas.isosurface_kernel import render_isosurface_pallas
-                return render_isosurface_pallas(vol, rays.entry_uv,
-                                                rays.direction, rays.hit,
-                                                **kwargs)
-            return render_isosurface(vol, rays.entry_uv, rays.direction,
-                                     rays.hit, **kwargs)
-        raise ValueError(f"unknown mode {mode}")
+    def render(self, rays, cut_depth: int | None = None,
+               mode: str = "compositing", **kwargs):
+        """Render the level cut with the renderer ``backend`` chooses
+        (``models.best_renderer`` / ``best_isosurface_renderer``)."""
+        return _render(self.volume_at(cut_depth), rays, mode, **kwargs)
 
     def diff_decoder(self, cut_depth: int | None = None):
         """Differentiable view of this tree (``codecs.diff.DiffDecoder``):
@@ -187,73 +151,38 @@ class CompressedRenderer:
         return DiffDecoder(self.dtree, self.spec, cut_depth=cut_depth)
 
     def make_plan(self, rays, cut_depth: int | None = None,
-                  mode: str = "compositing", skip_empty: bool = True,
-                  iso_value: float = 40.0 / 255.0, max_samples: int = 300,
-                  pooled: bool = False):
-        """Plan-once / render-many over this tree's level cut: precomputes the
-        tile packing, the DMA window table, and (``skip_empty``) the occupancy
-        words derived from the TREE's own scalars (``tree_occupancy_mip8`` —
-        the decoded cut is piecewise constant on cut-depth node boxes, so its
-        block maxima come straight from codec metadata, zero dense-volume
-        pass) — the tree's empty regions are skipped exactly.  Returns a
+                  mode: str = "compositing",
+                  iso_value: float = 40.0 / 255.0,
+                  max_samples: int = MAX_SAMPLES, pooled: bool = False):
+        """Plan-once / render-many over this tree's level cut.  Returns a
         zero-argument callable producing the same (rgb, alpha-or-hit) as
-        :meth:`render`; falls back to the jnp path off TPU or for unsupported
-        cameras.
+        :meth:`render`.
 
-        ``pooled=True`` is the compressed-domain render, our redesign of the
-        reference's unfinished in-shader tree traversal
-        (``isosurface_compressed.frag:18-44``): the HBM-resident volume
-        state is the packed tree + the sparse occupied-slab pool
-        (:meth:`slab_pool_at`), never a dense pair volume.  To be precise
-        about what happens where: the 2-bit codes are decoded by the
-        chunked device decode ONCE per cut (a separate jit pass, not inside
-        the march kernel), and the march kernel reads only the pooled slabs
-        — the measured residency/throughput tradeoff vs a true in-march
-        decode is recorded in docs/PERF_NOTES.md ("compressed-domain
-        residency").  Outputs are bit-identical to the dense kernel.  Falls
-        back to the dense plan when the camera/shape is unsupported by the
-        pooled kernel."""
-        X, Y, Z = self.spec["dims"]
-        mip = self.mip8_at(cut_depth)
-
+        ``pooled=False`` renders the dense decoded cut through the renderer
+        ``backend`` chooses.  ``pooled=True`` is the compressed-domain
+        render, our redesign of the reference's unfinished in-shader tree
+        traversal (``isosurface_compressed.frag:18-44``): the resident
+        volume state is the packed tree plus the sparse occupied-slab pool
+        (:meth:`shade_pool_at`), never a dense volume, and both marches
+        sample it with ``sample_pooled`` (XLA on every platform).  Samples
+        are 8-bit exact, so pooled and dense agree to float rounding."""
+        if mode not in ("compositing", "isosurface"):
+            raise ValueError(f"unknown mode {mode}")
+        if pooled:
+            state = self.shade_pool_at(cut_depth)
+            if mode == "compositing":
+                return lambda: render_compositing(
+                    state, rays.entry_uv, rays.direction, rays.hit,
+                    max_samples, sample=sample_pooled)
+            return lambda: render_isosurface(
+                state, rays.entry_uv, rays.direction, rays.hit, iso_value,
+                max_samples, sample=sample_pooled)
+        vol = self.volume_at(cut_depth)
         if mode == "compositing":
-            from ..ops.pallas.raycast_kernel import CompositingPlan
+            from . import CompositingPlan
 
-            if pooled:
-                plan = CompositingPlan(rays.entry_uv, rays.direction,
-                                       rays.hit, (X, Y, Z), max_samples,
-                                       pooled=True)
-                if plan.use_kernel:
-                    pool, smap = self.slab_pool_at(cut_depth)
-                    words = plan.bind(mip8=mip) if skip_empty else None
-                    return lambda: plan.render_pooled(pool, smap, words=words)
-                # unsupported camera/shape: dense fallback below
-            vol = self.volume_at(cut_depth)
             plan = CompositingPlan(rays.entry_uv, rays.direction, rays.hit,
-                                   (X, Y, Z), max_samples)
-            words = plan.bind(mip8=mip) \
-                if (skip_empty and plan.use_kernel) else None
-            return lambda: plan.render(vol, words=words)
-        elif mode == "isosurface":
-            from ..ops.pallas.isosurface_kernel import IsosurfacePlan
-
-            if pooled:
-                plan = IsosurfacePlan(rays.entry_uv, rays.direction,
-                                      rays.hit, (X, Y, Z), max_samples,
-                                      pooled=True)
-                if plan.use_kernel:
-                    fmt = "narrowf32" if plan.group > 1 else "pair16"
-                    pool, smap = self.slab_pool_at(cut_depth, fmt=fmt)
-                    shade_pool = self.shade_pool_at(cut_depth)
-                    words = plan.bind(iso_value=iso_value, mip8=mip) \
-                        if skip_empty else None
-                    return lambda: plan.render_pooled(
-                        pool, smap, iso_value, words=words,
-                        shade_pool=shade_pool)
-            vol = self.volume_at(cut_depth)
-            plan = IsosurfacePlan(rays.entry_uv, rays.direction, rays.hit,
-                                  (X, Y, Z), max_samples)
-            words = plan.bind(iso_value=iso_value, mip8=mip) \
-                if (skip_empty and plan.use_kernel) else None
-            return lambda: plan.render(vol, iso_value, words=words)
-        raise ValueError(f"unknown mode {mode}")
+                                   self.spec["dims"], max_samples)
+            return lambda: plan.render(vol)
+        return lambda: _render(vol, rays, "isosurface", iso_value=iso_value,
+                               max_samples=max_samples)

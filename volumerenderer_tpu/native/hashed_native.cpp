@@ -3,7 +3,7 @@
 // reference HashedKdtree.cpp:20-507).  The two build passes are inherently
 // sequential (hash-slot ownership and evictions depend on DFS visit order;
 // the distance sums are running means in that same order), so host-native
-// code is the right tool; the TPU side is the device decode
+// code is the right tool; the accelerator side is the device decode
 // (codecs/hashed.py level_cut_device_hashed).  Semantics are bit-identical
 // to the Python builder: same double arithmetic, same tie order
 // (none > add > sub), same eviction bookkeeping, same deterministic child

@@ -168,7 +168,7 @@ extern "C" void decode_preorder_native(
 #include <thread>
 #include <future>
 
-// Build-phase parallelism: 2-way fork-join on the kd children (the TPU-free
+// Build-phase parallelism: 2-way fork-join on the kd children (the host-side
 // analogue of the reference's PPL parallel_invoke, VolumeKdTree_recover.cpp
 // :175-178,607-610) plus chunked level sweeps with exact int64 partial sums
 // (order-independent: e^2 sums stay below 2^53, so the double mean is

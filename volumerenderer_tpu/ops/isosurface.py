@@ -16,7 +16,9 @@ Faithful array-program reimplementation of ``isosurface.frag:77-158``:
   the white clear color for uncovered pixels (``main.cpp:392``).
 
 Fixed iteration counts (4-step bisection, 300-step march) map to unrolled /
-fixed-trip loops with latched hit masks — the TPU idiom for divergence.
+bounded loops with latched hit masks.  Like the compositing march, every
+function takes its sampler as an argument (``sample_trilinear`` by default,
+``sampling.sample_pooled`` for the compressed-domain pool).
 """
 from __future__ import annotations
 
@@ -35,25 +37,26 @@ SPEC_POWER = 250.0      # isosurface.frag:155
 DIFFUSE = (0.39, 0.58, 0.93)  # isosurface.frag:155
 
 
-def bisection_refine(volume, left, right, iso, wrap="clamp"):
+def bisection_refine(volume, left, right, iso, wrap="clamp",
+                     sample=sample_trilinear):
     """4-iteration bisection between ``left`` and ``right`` (``isosurface.frag:23-42``)."""
     for _ in range(4):
         mid = (right + left) * 0.5
-        c_m = sample_trilinear(volume, mid, wrap=wrap)
+        c_m = sample(volume, mid, wrap)
         go_left = (c_m < iso)[..., None]
         left = jnp.where(go_left, mid, left)
         right = jnp.where(go_left, right, mid)
     return (right + left) * 0.5
 
 
-def gradient_normal(volume, uvw, wrap="clamp"):
+def gradient_normal(volume, uvw, wrap="clamp", sample=sample_trilinear):
     """Central-difference normal, ``normalize((s1 - s2) / 2)`` (``isosurface.frag:47-62``)."""
     offsets = jnp.eye(3, dtype=jnp.float32) * DELTA
     s1 = jnp.stack(
-        [sample_trilinear(volume, uvw - offsets[i], wrap=wrap) for i in range(3)], axis=-1
+        [sample(volume, uvw - offsets[i], wrap) for i in range(3)], axis=-1
     )
     s2 = jnp.stack(
-        [sample_trilinear(volume, uvw + offsets[i], wrap=wrap) for i in range(3)], axis=-1
+        [sample(volume, uvw + offsets[i], wrap) for i in range(3)], axis=-1
     )
     g = (s1 - s2) / 2.0
     norm = jnp.linalg.norm(g, axis=-1, keepdims=True)
@@ -70,7 +73,7 @@ def phong(L, N, V, spec_power=SPEC_POWER, diffuse_color=DIFFUSE):
     return color
 
 
-@partial(jax.jit, static_argnames=("max_samples", "wrap"))
+@partial(jax.jit, static_argnames=("max_samples", "wrap", "sample"))
 def render_isosurface(
     volume: jnp.ndarray,
     entry_uv: jnp.ndarray,
@@ -79,8 +82,11 @@ def render_isosurface(
     iso_value: float | jnp.ndarray = 40.0 / 255.0,
     max_samples: int = MAX_SAMPLES,
     wrap: str = "clamp",
+    sample=sample_trilinear,
 ):
-    """Returns (rgb (..., 3), hit_mask (...,)).  Non-hit pixels are white."""
+    """Returns (rgb (..., 3), hit_mask (...,)).  Non-hit pixels are white.
+    ``volume`` is a dense (Z, Y, X) volume or any state with a ``shape``
+    that ``sample(volume, uvw, wrap)`` reads."""
     Z, Y, X = volume.shape
     step_size = jnp.array([1.0 / X, 1.0 / Y, 1.0 / Z], dtype=jnp.float32)
     dir_step = direction * step_size
@@ -93,8 +99,8 @@ def render_isosurface(
         pos = pos + dir_step
         inside = jnp.all((pos > 0.0) & (pos < 1.0), axis=-1)
         alive = alive & inside
-        s = sample_trilinear(volume, pos, wrap=wrap)
-        s2 = sample_trilinear(volume, pos + dir_step, wrap=wrap)
+        s = sample(volume, pos, wrap)
+        s2 = sample(volume, pos + dir_step, wrap)
         crossing = alive & ((s - iso) < 0.0) & ((s2 - iso) >= 0.0) & ~found
         hit_near = jnp.where(crossing[..., None], pos, hit_near)
         hit_far = jnp.where(crossing[..., None], pos + dir_step, hit_far)
@@ -122,8 +128,8 @@ def render_isosurface(
     _, (_, _, found, hit_near, hit_far) = jax.lax.while_loop(
         cond, wbody, (jnp.int32(0), init))
 
-    tc = bisection_refine(volume, hit_near, hit_far, iso, wrap=wrap)
-    N = gradient_normal(volume, tc, wrap=wrap)
+    tc = bisection_refine(volume, hit_near, hit_far, iso, wrap, sample)
+    N = gradient_normal(volume, tc, wrap, sample)
     V = -direction
     color = phong(V, N, V)
     color = jnp.clip(color, 0.0, 1.0)  # framebuffer saturation

@@ -16,8 +16,10 @@ Faithful array-program reimplementation of ``raycaster.frag:18-86``:
   (``:82-85``).  The GLSL accumulator is uninitialized; in practice it is
   zero, which we make explicit.
 
-Divergence (bounds exit, early out) is handled with latched masks over a
-fixed-trip ``lax.fori_loop`` — the TPU idiom for per-ray control flow.
+Divergence (bounds exit, early out) is handled with latched masks over the
+whole ray batch.  The marches take their sampler as a static argument:
+``sample_trilinear`` over a dense (Z, Y, X) volume by default, or
+``sampling.sample_pooled`` over a compressed-domain ``ShadePool``.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ ALPHA_SCALE = 0.6   # raycaster.frag:72
 EARLY_OUT_ALPHA = 0.99  # raycaster.frag:77
 
 
-@partial(jax.jit, static_argnames=("max_samples", "wrap"))
+@partial(jax.jit, static_argnames=("max_samples", "wrap", "sample"))
 def composite_march(
     volume: jnp.ndarray,
     entry_uv: jnp.ndarray,
@@ -43,8 +45,10 @@ def composite_march(
     hit: jnp.ndarray,
     max_samples: int = MAX_SAMPLES,
     wrap: str = "clamp",
+    sample=sample_trilinear,
 ):
-    """March rays through ``volume`` (Z, Y, X float32 in [0,1]).
+    """March rays through ``volume`` (Z, Y, X float32 in [0,1], or any state
+    with a ``shape`` that ``sample(volume, uvw, wrap)`` reads).
 
     Args:
       entry_uv: (..., 3) cube entry points in texture space.
@@ -65,7 +69,7 @@ def composite_march(
         pos = pos + dir_step
         inside = jnp.all((pos > 0.0) & (pos < 1.0), axis=-1)
         alive = alive & inside
-        s = sample_trilinear(volume, pos, wrap=wrap)
+        s = sample(volume, pos, wrap)
         prev_alpha = s - s * alpha
         color = jnp.where(alive, color + prev_alpha * s, color)
         alpha = jnp.where(alive, alpha + prev_alpha * ALPHA_SCALE, alpha)
@@ -83,7 +87,7 @@ def composite_march(
     return color, alpha
 
 
-@partial(jax.jit, static_argnames=("max_samples", "wrap"))
+@partial(jax.jit, static_argnames=("max_samples", "wrap", "sample"))
 def composite_march_early_exit(
     volume: jnp.ndarray,
     entry_uv: jnp.ndarray,
@@ -91,6 +95,7 @@ def composite_march_early_exit(
     hit: jnp.ndarray,
     max_samples: int = MAX_SAMPLES,
     wrap: str = "clamp",
+    sample=sample_trilinear,
 ):
     """Same semantics as :func:`composite_march`, but the fixed-trip loop is a
     ``while_loop`` that stops once *every* ray has terminated (bounds exit or
@@ -111,7 +116,7 @@ def composite_march_early_exit(
         pos = pos + dir_step
         inside = jnp.all((pos > 0.0) & (pos < 1.0), axis=-1)
         alive = alive & inside
-        s = sample_trilinear(volume, pos, wrap=wrap)
+        s = sample(volume, pos, wrap)
         prev_alpha = s - s * alpha
         color = jnp.where(alive, color + prev_alpha * s, color)
         alpha = jnp.where(alive, alpha + prev_alpha * ALPHA_SCALE, alpha)
@@ -137,6 +142,8 @@ def apply_reference_transfer(color: jnp.ndarray, alpha: jnp.ndarray) -> jnp.ndar
     return jnp.stack([inv, inv, jnp.ones_like(color)], axis=-1)
 
 
+@partial(jax.jit, static_argnames=("max_samples", "wrap", "early_exit",
+                                   "sample"))
 def render_compositing(
     volume: jnp.ndarray,
     entry_uv: jnp.ndarray,
@@ -145,10 +152,12 @@ def render_compositing(
     max_samples: int = MAX_SAMPLES,
     wrap: str = "clamp",
     early_exit: bool = True,
+    sample=sample_trilinear,
 ):
     """Full reference pipeline: march + fixed transfer.  Returns (rgb, alpha)
     where rgb is (..., 3) in [0, 1] (background/missed rays come out white,
     matching the white clear color at ``main.cpp:392``)."""
     march = composite_march_early_exit if early_exit else composite_march
-    color, alpha = march(volume, entry_uv, direction, hit, max_samples, wrap)
+    color, alpha = march(volume, entry_uv, direction, hit, max_samples, wrap,
+                         sample)
     return apply_reference_transfer(color, alpha), alpha

@@ -17,11 +17,16 @@ The volume array is indexed ``[z, y, x]`` (C-order match of the reference's
 """
 from __future__ import annotations
 
+import dataclasses
+from functools import partial
+
+import jax
 import jax.numpy as jnp
 
 __all__ = ["sample_trilinear", "as_normalized_volume",
            "pack_neighborhoods", "sample_trilinear_packed",
-           "build_shade_pool", "sample_trilinear_pooled"]
+           "ShadePool", "build_shade_pool", "sample_trilinear_pooled",
+           "sample_pooled"]
 
 
 def as_normalized_volume(volume) -> jnp.ndarray:
@@ -95,9 +100,8 @@ def pack_neighborhoods(volume: jnp.ndarray) -> jnp.ndarray:
     clamp-to-edge neighbors baked in.  Word 0 packs the z0 plane
     (c000 | c100<<8 | c010<<16 | c110<<24), word 1 the z1 plane.
 
-    One (1, 1, 1, 2) gather then fetches a whole 2x2x2 neighborhood —
-    measured ~8x fewer gather slices than the naive path on TPU, where
-    gather cost is per *slice*, not per element (docs/PERF_NOTES.md)."""
+    One (1, 1, 1, 2) gather then fetches a whole 2x2x2 neighborhood
+    instead of eight scalar ones."""
     s = jnp.round(jnp.clip(volume, 0.0, 1.0) * 255.0).astype(jnp.uint32)
 
     def sh(a, dz, dy, dx):
@@ -151,42 +155,71 @@ def sample_trilinear_packed(packed: jnp.ndarray, uvw: jnp.ndarray) -> jnp.ndarra
     return (c0 + (c1 - c0) * fz) * (1.0 / 255.0)
 
 
-def build_shade_pool(volume: jnp.ndarray, mip8=None):
-    """Sparse z-slab residency for the packed-neighborhood volume (the
-    isosurface shading sampler): returns ``(pool, slab_map)`` where ``pool``
-    is (n_slots, 8, Y, X, 2) uint32 — slot 0 all-zero, slot i >= 1 the
-    ``pack_neighborhoods`` rows [8s, 8s + 8) of occupied slab s — and
-    ``slab_map`` (Z//8,) int32 maps z-block -> slot.  Neighborhood words bake
-    the +1 taps in, so per-voxel slab indirection needs no overlap rows.
+@partial(jax.tree_util.register_dataclass, data_fields=["pool", "slab_map"],
+         meta_fields=["depth"])
+@dataclasses.dataclass(frozen=True)
+class ShadePool:
+    """Sparse z-slab residency of the packed-neighborhood volume
+    (:func:`build_shade_pool`).  ``pool`` is (n_slots, 8, Y, X, 2) uint32 —
+    slot 0 all-zero, slot i >= 1 the ``pack_neighborhoods`` rows of one
+    occupied 8-row z-slab — and ``slab_map`` (ceil(Z/8),) int32 maps
+    z-block -> slot.  ``shape`` is the (Z, Y, X) of the volume it stands
+    for, so the marches take it wherever they take a dense volume (with
+    ``sample=sample_pooled``)."""
+
+    pool: jax.Array
+    slab_map: jax.Array
+    depth: int
+
+    @property
+    def shape(self):
+        return (self.depth, self.pool.shape[2], self.pool.shape[3])
+
+
+def build_shade_pool(volume: jnp.ndarray, mip8=None) -> ShadePool:
+    """Sparse z-slab residency for the packed-neighborhood volume.
+    Neighborhood words bake the +1 taps in, so per-voxel slab indirection
+    needs no overlap rows; a Z that is not a multiple of 8 pads the last
+    slab with rows no sample reads (indices clamp to Z - 1).
 
     Zero-slot reads are exact, not approximate: an unoccupied slab has block
-    max 0, so every tap a shading sample would fetch there is truly 0.
-    ``mip8`` (e.g. ``codecs.device.tree_occupancy_mip8``) drives residency
-    from compressed-tree metadata; ``None`` computes it from the volume."""
+    max 0, so every tap a sample would fetch there is truly 0.  ``mip8``
+    (e.g. ``codecs.device.tree_occupancy_mip8``) drives residency from
+    compressed-tree metadata; ``None`` computes it from the volume."""
     import numpy as np
 
     Z, Y, X = volume.shape
-    assert Z % 8 == 0, Z
+    nb = -(-Z // 8)
     packed = pack_neighborhoods(volume)
+    packed = jnp.pad(packed, ((0, 8 * nb - Z), (0, 0), (0, 0), (0, 0)))
     if mip8 is None:
         s = jnp.round(jnp.clip(volume, 0.0, 1.0) * 255.0)
-        m8 = np.asarray(s.reshape(Z // 8, 8, Y, X).max(axis=(1, 2, 3)))
-        zocc = m8 > 0.0
+        s = jnp.pad(s, ((0, 8 * nb - Z), (0, 0), (0, 0)))
+        zocc = np.asarray(s.reshape(nb, 8, Y, X).max(axis=(1, 2, 3))) > 0.0
     else:
-        zocc = (np.asarray(mip8) > 0.0).any(axis=(1, 2))[: Z // 8]
+        zocc = (np.asarray(mip8) > 0.0).any(axis=(1, 2))[:nb]
     # the z1 plane of a cell in the slab's last row lives in the next slab's
     # first row, but pack_neighborhoods bakes it into this slab's words — so
     # occupancy must include slabs whose only content is a neighbor's z1 tap
     occ = zocc.copy()
     occ[:-1] |= zocc[1:]
-    slots = np.zeros(Z // 8, np.int32)
+    slots = np.zeros(nb, np.int32)
     slots[occ] = 1 + np.arange(int(occ.sum()), dtype=np.int32)
     rows = (8 * np.nonzero(occ)[0].astype(np.int32)[:, None]
             + np.arange(8, dtype=np.int32)[None])
     pool = jnp.concatenate(
         [jnp.zeros((1, 8, Y, X, 2), jnp.uint32),
          packed[rows.reshape(-1)].reshape(-1, 8, Y, X, 2)], axis=0)
-    return pool, jnp.asarray(slots)
+    return ShadePool(pool, jnp.asarray(slots), Z)
+
+
+def sample_pooled(state: ShadePool, uvw: jnp.ndarray,
+                  wrap: str = "clamp") -> jnp.ndarray:
+    """The marches' sampler over a :class:`ShadePool` (clamp wrap only)."""
+    if wrap != "clamp":
+        raise ValueError(f"the pooled sampler clamps; got wrap={wrap!r}")
+    Z, Y, X = state.shape
+    return sample_trilinear_pooled(state.pool, state.slab_map, (X, Y, Z), uvw)
 
 
 def sample_trilinear_pooled(pool: jnp.ndarray, slab_map: jnp.ndarray,

@@ -1,8 +1,8 @@
 """Brick-sharded HBM rendering — the renderer's "TP" (SURVEY.md §2
-"Volume/brick sharding"; BASELINE config 5 "brick-sharded across multi-host
-pod").  The volume lives sharded over a 3-D device mesh ("bz", "by", "bx"):
+"Volume/brick sharding"; BASELINE config 5 "brick-sharded across hosts").
+The volume lives sharded over a 3-D device mesh ("bz", "by", "bx"):
 each device holds one brick of the global (Z, Y, X) array in its HBM — the
-TPU-native form of the reference's brick-grid decomposition
+device-mesh form of the reference's brick-grid decomposition
 (``main.cpp:78-79,599-619``), where bricks tiled host RAM instead.
 
 Rendering: every device marches the full ray set over ALL steps but samples
@@ -87,17 +87,18 @@ def _extend_axis(slab, axis_name: str, n: int, axis: int):
     """Append one halo plane along ``axis``: the next shard's first plane via
     a ppermute ring; the last shard clamps with its own last plane (global
     GL clamp-to-edge at the true volume face).  Exchanging slabs already
-    extended along other axes carries edge/corner halos automatically."""
+    extended along other axes carries edge/corner halos automatically.  An
+    unsharded axis (``n == 1``) gets no copy: the globally clamped +1 index
+    never passes its last plane."""
+    if n == 1:
+        return slab
     S = slab.shape[axis]
     first = jax.lax.slice_in_dim(slab, 0, 1, axis=axis)
     last = jax.lax.slice_in_dim(slab, S - 1, S, axis=axis)
-    if n == 1:
-        halo = last
-    else:
-        idx = jax.lax.axis_index(axis_name)
-        perm = [(i, (i - 1) % n) for i in range(n)]
-        halo = jax.lax.ppermute(first, axis_name, perm)
-        halo = jnp.where(idx == n - 1, last, halo)
+    idx = jax.lax.axis_index(axis_name)
+    perm = [(i, (i - 1) % n) for i in range(n)]
+    halo = jax.lax.ppermute(first, axis_name, perm)
+    halo = jnp.where(idx == n - 1, last, halo)
     return jnp.concatenate([slab, halo], axis=axis)
 
 

@@ -1,10 +1,10 @@
 """Multi-host runtime — the communication-backend layer the reference never
 had (single process; SURVEY.md §5 "Distributed communication backend").
 
-TPU-native shape: ``jax.distributed.initialize`` per host joins the pod
+Shape: ``jax.distributed.initialize`` per host joins the distributed
 runtime; one global mesh spans all hosts; XLA collectives (psum/all_gather/
-ppermute) ride ICI within a slice and DCN across hosts — there is no NCCL/MPI
-analogue to manage.  This module wraps initialization, global mesh
+ppermute) go to NCCL between GPUs (NVLink within a host, the network across
+hosts) — there is no MPI layer to manage.  This module wraps initialization, global mesh
 construction, per-host brick I/O (each host reads only the bricks backing its
 volume shards), and the scaling-efficiency harness for the >=80% @ N>=2 hosts
 north star (BASELINE.json).
@@ -33,8 +33,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Join the distributed runtime (no-op for single-process runs).
 
-    On Cloud TPU the arguments are auto-detected; pass them explicitly for
-    other launchers."""
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id; nothing detects them."""
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(coordinator_address, num_processes, process_id)
 

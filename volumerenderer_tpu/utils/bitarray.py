@@ -1,4 +1,4 @@
-"""Packed 2-bit / 4-bit code arrays — TPU-native equivalent of the reference's
+"""Packed 2-bit / 4-bit code arrays — JAX equivalent of the reference's
 ``TwoBitArray`` / ``FourBitArray`` containers (reference: ``TwoBitArray.h:30-49``,
 ``FourBitArray.h:30-49``).
 

@@ -1,4 +1,4 @@
-"""Phase timing harness — TPU-native equivalent of the reference ``DebugTimer``
+"""Phase timing harness — the equivalent of the reference ``DebugTimer``
 (``DebugTimer.cpp:6-31``): label -> accumulated wall time, mean ms and "fps"
 printed every n-th ``end``.  For device work the timers bracket
 ``jax.block_until_ready`` so the numbers are honest (the reference brackets the
@@ -67,7 +67,7 @@ def timed(label: str, sync_value=None, report_every: int = 1,
           profile: bool = False, profile_dir: str | None = None):
     """Timed scope.  With ``profile=True`` the scope also runs under a
     ``jax.profiler.trace`` (written to ``profile_dir``, default
-    ``/tmp/vrtpu_trace/<label>``) with a ``TraceAnnotation`` carrying the
+    ``<tempdir>/vr_trace/<label>``) with a ``TraceAnnotation`` carrying the
     label — the trace half of the reference ``DebugTimer`` equivalent
     (SURVEY.md §5: phase timers + ``jax.profiler`` integration)."""
     DebugTimer.begin(report_every, label)
@@ -75,8 +75,10 @@ def timed(label: str, sync_value=None, report_every: int = 1,
     stack = contextlib.ExitStack()
     if profile:
         import os
+        import tempfile
 
-        tdir = profile_dir or os.path.join("/tmp", "vrtpu_trace", label)
+        tdir = profile_dir or os.path.join(tempfile.gettempdir(), "vr_trace",
+                                           label)
         os.makedirs(tdir, exist_ok=True)
         stack.enter_context(jax.profiler.trace(tdir))
         stack.enter_context(jax.profiler.TraceAnnotation(label))
